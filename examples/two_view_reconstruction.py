@@ -12,25 +12,20 @@ images alone (the classic monocular ambiguity); the known baseline length
 fixes it, exactly as a real deployment would use an odometer/IMU/rig prior.
 
 Runs anywhere:  python examples/two_view_reconstruction.py
-(set STEPTH_EXAMPLE_PLATFORM=tpu to run the dense matcher on the chip)
 """
 
-import os, sys
+import os, sys, tempfile
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-
-import jax
-
-jax.config.update("jax_platforms", os.environ.get("STEPTH_EXAMPLE_PLATFORM", "cpu"))
 
 import numpy as np
 import jax.numpy as jnp
 
-from stepth_tpu.config import MatchConfig, PyramidConfig
-from stepth_tpu.core import io as st_io
-from stepth_tpu.fusion import epipolar, geometry as geo
-from stepth_tpu.match import features
-from stepth_tpu.models.stereo import StereoModel
-from stepth_tpu.ops import rectify
+from stepth.config import MatchConfig, PyramidConfig
+from stepth.core import io as st_io
+from stepth.fusion import epipolar, geometry as geo
+from stepth.match import features
+from stepth.models.stereo import StereoModel
+from stepth.ops import rectify
 
 # ---------------------------------------------------------------------------
 # 1. Render a two-view scene (ground truth: K, R, T, and the surface itself)
@@ -108,14 +103,9 @@ X_sparse = np.asarray(X_sparse) * baseline_gt  # triangulation at metric scale
 # ---------------------------------------------------------------------------
 
 maps = rectify.rectify_maps(K, K, R_est, T_est, (H, W))
-# device-resident warp on TPU (Pallas roll-not-gather kernel); the XLA gather
-# path stays the reference on CPU
-warp = "pallas" if jax.default_backend() == "tpu" else "xla"
-rleft, rright = rectify.rectify_pair(
-    jnp.asarray(img1), jnp.asarray(img2), maps, backend=warp
-)
+rleft, rright = rectify.rectify_pair(jnp.asarray(img1), jnp.asarray(img2), maps)
 
-backend = "hierarchical-pallas" if jax.default_backend() == "tpu" else "hierarchical"
+backend = "hierarchical"
 model = StereoModel(
     backend=backend,
     match=MatchConfig(num_disparities=64, window=9, cost="sad"),
@@ -168,7 +158,9 @@ print(
     f" (sparse triangulation {med_sparse:.2f}; surface band 2.9-7.1)"
 )
 
-out = os.environ.get("STEPTH_EXAMPLE_OUT", "/tmp/two_view_cloud.ply")
+out = os.environ.get(
+    "STEPTH_EXAMPLE_OUT", os.path.join(tempfile.gettempdir(), "two_view_cloud.ply")
+)
 colors = np.clip(np.asarray(rleft), 0, 255)[..., None].repeat(3, -1)
 valid = np.zeros((H, W), bool)
 valid[24:-24, 32:-32] = True
@@ -176,9 +168,9 @@ valid &= np.isfinite(np.asarray(depth)) & (np.asarray(depth) > 0)
 n = st_io.save_ply(out, np.asarray(pts), colors=colors, valid=valid)
 print(f"[5] wrote {n} points -> {out}")
 
-# pose thresholds are platform-loose (MXU vs CPU feature scores shift the
-# RANSAC inlier set: measured rot_err 0.010 CPU / 0.021 TPU); the tight
-# end-to-end contract is the dense depth against the analytic ground truth
+# pose thresholds are platform-loose (feature scores computed in another
+# order shift the RANSAC inlier set); the tight end-to-end contract is the
+# dense depth against the analytic ground truth
 assert rot_err < 3e-2, rot_err
 assert t_ang < 9.0, t_ang
 assert abs(med_dense - med_gt) < 0.4, (med_dense, med_gt)

@@ -1,36 +1,45 @@
-"""stepth_tpu — a TPU-native stereo-depth and mapping engine.
+"""Former name of the :mod:`stepth` package, kept as an alias.
 
-A from-scratch JAX/XLA/Pallas framework with the capabilities of the reference
-library nikilark/stepth (see SURVEY.md): depth-from-stereo block matching,
-depth-map analytics and segmentation, mask algebra and masked adjustments, and
-stereo photometric normalization — re-designed TPU-first as pure functions over
-arrays with an exact NumPy oracle anchoring parity — plus the greenfield
-extensions from BASELINE.md: fused Pallas cost-volume matching, spatial tile
-sharding with halo exchange, temporal video ops, and multi-frame fusion with
-distributed Schur-complement bundle adjustment.
-
-Layer map (SURVEY.md §7):
-  core/      frames (DepthFrame/MaskFrame pytrees) + image I/O
-  oracle/    exact NumPy reference semantics (parity anchor)
-  native/    C++ host engine (subdivision + ring search, ctypes)
-  ops/       single-chip ops: mask algebra, k-means, resize, photometric, temporal
-  match/     depth engines: parity, dense XLA, fused Pallas, pyramid
-  parallel/  mesh + shard_map tile sharding with ppermute halos
-  fusion/    SE(3), depth fusion, pose graph, distributed Schur BA
-  models/    configured estimators (StereoModel, flagship)
-  utils/     tracing, metrics, checkpoint
+Importing this package, or any submodule under it, gives the very module of
+:mod:`stepth` with the same path: ``<this>.models.StereoModel is
+stepth.models.StereoModel``. New code imports :mod:`stepth`.
 """
 
-from stepth_tpu import config
-from stepth_tpu.core.frame import MASK_FALSE, MASK_TRUE, DepthFrame, MaskFrame
+import importlib
+import importlib.abc
+import importlib.util
+import sys
+import warnings
 
-__version__ = "0.5.0"
+from stepth import *  # noqa: F401,F403
+from stepth import __all__, __version__  # noqa: F401
 
-__all__ = [
-    "DepthFrame",
-    "MaskFrame",
-    "MASK_TRUE",
-    "MASK_FALSE",
-    "config",
-    "__version__",
-]
+_PREFIX = __name__ + "."
+
+
+class _AliasFinder(importlib.abc.MetaPathFinder, importlib.abc.Loader):
+    """Resolves ``<this>.X`` to the module ``stepth.X`` (one module object
+    under both names, so classes and caches are shared)."""
+
+    def find_spec(self, name, path=None, target=None):
+        if name.startswith(_PREFIX):
+            return importlib.util.spec_from_loader(name, self)
+        return None
+
+    def create_module(self, spec):
+        return None
+
+    def exec_module(self, module):
+        # the import system returns whatever sys.modules holds after exec
+        real = importlib.import_module("stepth." + module.__name__[len(_PREFIX):])
+        sys.modules[module.__name__] = real
+
+
+if not any(type(f).__qualname__ == "_AliasFinder" for f in sys.meta_path):
+    sys.meta_path.insert(0, _AliasFinder())
+
+warnings.warn(
+    f"the package {__name__!r} is now 'stepth'; import stepth instead",
+    DeprecationWarning,
+    stacklevel=2,
+)

@@ -10,10 +10,12 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from stepth_tpu.config import MatchConfig, PyramidConfig
-from stepth_tpu.parallel import comm_model, mesh as mesh_mod, sharded
+from stepth.config import MatchConfig, PyramidConfig
+from stepth.parallel import comm_model, mesh as mesh_mod, sharded
 
 from tests.test_match_dense import make_pair
+
+H100 = "NVIDIA H100 80GB HBM3"
 
 
 def _compiled_text(fn, *args):
@@ -44,7 +46,7 @@ def test_hierarchical_sharded_bytes_match_hlo(rng, coarse):
     m = mesh_mod.make_mesh(data=1, tile=ntile)
     txt = _compiled_text(
         lambda l, r: sharded.match_hierarchical_sharded(
-            l, r, cfg, pyr, m, tile_rows=8, interpret=True,
+            l, r, cfg, pyr, m, tile_rows=8,
             coarse_backend=coarse,
         ).disparity,
         jnp.asarray(left), jnp.asarray(right),
@@ -58,8 +60,8 @@ def test_hierarchical_sharded_bytes_match_hlo(rng, coarse):
 
 @pytest.mark.parametrize("exact", [True, False])
 def test_sgm_sharded_bytes_match_hlo(rng, exact):
-    from stepth_tpu.match.sgm import SGMConfig
-    from stepth_tpu.parallel import sgm_sharded
+    from stepth.match.sgm import SGMConfig
+    from stepth.parallel import sgm_sharded
 
     cfg = MatchConfig(num_disparities=16, window=5, lr_threshold=1.0)
     sgm = SGMConfig(directions=4)
@@ -85,7 +87,7 @@ def test_ba_allreduce_shapes_present(rng):
     the model counts appears in the compiled program."""
     from jax.sharding import Mesh
 
-    from stepth_tpu.fusion import ba
+    from stepth.fusion import ba
     from tests.test_fusion_ba import make_problem
 
     prob, _, _ = make_problem(np.random.default_rng(0), n_cams=4, n_pts=64)
@@ -103,12 +105,25 @@ def test_ba_allreduce_shapes_present(rng):
     assert got["allreduce"] > 0
 
 
+def test_link_table_is_keyed_by_device_kind():
+    """Known devices have a cited rate; an unknown device kind is an error,
+    and a projection over several hosts needs the host link stated."""
+    assert comm_model.link_gbps(H100) == 450.0
+    with pytest.raises(ValueError, match="no link bandwidth"):
+        comm_model.link_gbps("Unlisted Accelerator")
+    rep = comm_model.comm_sgm_sharded(MatchConfig(num_disparities=16), 64, 64, 2)
+    with pytest.raises(ValueError, match="host_gbps"):
+        comm_model.project(rep, 1.0, 2, device_kind=H100, n_hosts=2)
+
+
 def test_projection_sanity():
     cfg = MatchConfig(num_disparities=128, window=9)
     pyr = PyramidConfig(levels=4, refine_radius=4, coarsest_disparities=16)
     rep = comm_model.comm_hierarchical_sharded(cfg, pyr, 1080, 1920, 8)
-    p1 = comm_model.project(rep, compute_ms_1chip=1.43, n_devices=8, n_hosts=1)
-    p2 = comm_model.project(rep, compute_ms_1chip=1.43, n_devices=8, n_hosts=2)
+    p1 = comm_model.project(rep, compute_ms_1chip=2.0, n_devices=8,
+                            device_kind=H100, n_hosts=1)
+    p2 = comm_model.project(rep, compute_ms_1chip=2.0, n_devices=8,
+                            device_kind=H100, n_hosts=2, host_gbps=25.0)
     assert 0 < p2.efficiency <= p1.efficiency <= 1.0
     # halos are fixed-size: 8-way single-host sharding must stay efficient
     assert p1.efficiency > 0.8, p1
@@ -116,7 +131,8 @@ def test_projection_sanity():
     sgm_rep = comm_model.comm_sgm_sharded(
         MatchConfig(num_disparities=64, window=5), 1080, 1920, 8
     )
-    p3 = comm_model.project(sgm_rep, compute_ms_1chip=17.8, n_devices=8)
+    p3 = comm_model.project(sgm_rep, compute_ms_1chip=20.0, n_devices=8,
+                            device_kind=H100)
     assert p3.comm_ms > 0
 
 
@@ -128,13 +144,16 @@ def test_projection_relay_rescale():
     rep8 = comm_model.comm_sgm_sharded(scfg, 1080, 1920, 8, directions=4)
     for n in (2, 4, 16, 32):
         fresh = comm_model.comm_sgm_sharded(scfg, 1080, 1920, n, directions=4)
-        p_scaled = comm_model.project(rep8, compute_ms_1chip=17.8, n_devices=n)
-        p_fresh = comm_model.project(fresh, compute_ms_1chip=17.8, n_devices=n)
+        p_scaled = comm_model.project(rep8, compute_ms_1chip=20.0, n_devices=n,
+                                      device_kind=H100)
+        p_fresh = comm_model.project(fresh, compute_ms_1chip=20.0, n_devices=n,
+                                     device_kind=H100)
         assert abs(p_scaled.comm_ms - p_fresh.comm_ms) < 1e-9, (n, p_scaled, p_fresh)
     # a report built for n=1 has no relay collectives at all: refuse to project
     rep1 = comm_model.comm_sgm_sharded(scfg, 1080, 1920, 1, directions=4)
     with pytest.raises(ValueError, match="built for n=1"):
-        comm_model.project(rep1, compute_ms_1chip=17.8, n_devices=8)
+        comm_model.project(rep1, compute_ms_1chip=20.0, n_devices=8,
+                           device_kind=H100)
 
 
 def test_sgm_relay_critical_path_counts(rng):
@@ -143,8 +162,8 @@ def test_sgm_relay_critical_path_counts(rng):
     regardless of n. Validate those structural inputs against the compiled
     programs across a device grid: the relay's op COUNT must grow as
     n_relay × (n−1) while the halo op count stays constant."""
-    from stepth_tpu.match.sgm import SGMConfig
-    from stepth_tpu.parallel import sgm_sharded
+    from stepth.match.sgm import SGMConfig
+    from stepth.parallel import sgm_sharded
 
     cfg = MatchConfig(num_disparities=16, window=5, lr_threshold=1.0)
     sgm = SGMConfig(directions=4)
@@ -188,8 +207,8 @@ def test_relay_time_grows_halo_time_flat(rng):
     from jax import lax, shard_map
     from jax.sharding import PartitionSpec as P
 
-    from stepth_tpu.match import sgm as sgm_mod
-    from stepth_tpu.parallel.sharded import halo_exchange_rows
+    from stepth.match import sgm as sgm_mod
+    from stepth.parallel.sharded import halo_exchange_rows
 
     D, W, h = 8, 128, 64
     vol = jnp.asarray(rng.uniform(0, 50, (h, W, D)).astype(np.float32))

@@ -39,8 +39,8 @@ import os
 import numpy as np
 import pytest
 
-from stepth_tpu.oracle import subdivision as sub
-from tests.conftest import ASSETS
+from stepth.oracle import subdivision as sub
+from tests.conftest import ASSETS, require_assets
 
 GOLD_DEPTH = os.path.join(ASSETS, "depth.jpg")
 PRECISION = (255 // 7,) * 3
@@ -106,6 +106,7 @@ def _leaf_ids(level, geo, shape):
 def assets_np():
     from PIL import Image
 
+    require_assets()
     main = np.asarray(
         Image.open(os.path.join(ASSETS, "main.jpg")).convert("RGB")
     ).astype(np.uint8)

@@ -4,7 +4,7 @@ integration with rectification."""
 import numpy as np
 import jax.numpy as jnp
 
-from stepth_tpu.fusion import epipolar, geometry as geo
+from stepth.fusion import epipolar, geometry as geo
 from tests.test_rectify import K, _rot
 
 
@@ -52,7 +52,7 @@ def test_recover_pose_and_triangulate(rng):
 
 def test_pose_from_pixels_feeds_rectification(rng):
     """Pixels → pose → rectification: rows align in the rectified views."""
-    from stepth_tpu.ops import rectify
+    from stepth.ops import rectify
 
     R, T, pts, _, _ = _rig(rng)
     uv1 = np.asarray(geo.project(jnp.asarray(pts), jnp.asarray([200.0, 200.0, 96.0, 64.0])))
@@ -67,3 +67,47 @@ def test_pose_from_pixels_feeds_rectification(rng):
         np.asarray(r1)[:, 1], np.asarray(r2)[:, 1], atol=5e-3
     )
     assert abs(float(maps.baseline) - baseline) < 1e-5
+
+
+def test_pose_recovery_pins_float32_precision(rng):
+    """Pose recovery computes its products at full float32 whatever the
+    default matmul precision: a run under "highest" gives the same pose, and
+    so does one under the reduced "bfloat16" default a device may apply."""
+    import jax
+
+    _, _, pts, _, _ = _rig(rng)
+    R, T = _rot("y", 4.0) @ _rot("x", -2.0), np.array([-0.8, 0.05, 0.03])
+    intr = jnp.asarray([200.0, 200.0, 96.0, 64.0])
+    uv1 = np.asarray(geo.project(jnp.asarray(pts), intr))
+    uv2 = np.asarray(geo.project(jnp.asarray(pts @ R.T.astype(np.float32) + T.astype(np.float32)), intr))
+    got = {}
+    for prec in ("highest", "bfloat16"):
+        with jax.default_matmul_precision(prec):
+            Rb, Tb, _ = epipolar.pose_from_correspondences(uv1, uv2, K, K, ransac_iters=0)
+        got[prec] = (np.asarray(Rb), np.asarray(Tb))
+    np.testing.assert_allclose(got["bfloat16"][0], got["highest"][0], atol=1e-5)
+    np.testing.assert_allclose(got["bfloat16"][1], got["highest"][1], atol=1e-5)
+    np.testing.assert_allclose(got["highest"][0], R, atol=2e-3)
+
+    # the CPU computes float32 dots exactly whatever is asked, so pin the
+    # program itself: every matrix product in pose recovery asks for HIGHEST
+    def dots(jaxpr):
+        for eqn in jaxpr.eqns:
+            if eqn.primitive.name == "dot_general":
+                yield eqn.params["precision"]
+            for sub in jax.core.jaxprs_in_params(eqn.params):
+                yield from dots(sub)
+
+    x1, x2 = jnp.asarray(uv1[:, :2] / 200.0), jnp.asarray(uv2[:, :2] / 200.0)
+    E = epipolar.estimate_essential(x1, x2)
+    precs = []
+    for fn, args in (
+        (epipolar.estimate_essential, (x1, x2)),
+        (epipolar.recover_pose, (E, x1, x2)),
+        (epipolar.epipolar_residuals, (E, x1, x2)),
+        (epipolar.triangulate, (jnp.eye(3), jnp.ones(3), x1, x2)),
+    ):
+        precs += list(dots(jax.make_jaxpr(fn)(*args).jaxpr))
+    assert precs, "no matrix products found"
+    hi = jax.lax.Precision.HIGHEST
+    assert all(p == (hi, hi) for p in precs), precs

@@ -3,7 +3,7 @@ restart → resume, asserting the resumed run equals an uninterrupted one
 bit-for-bit.
 
 The recovery model for multi-host jobs is fail-fast + restart-from-checkpoint
-(stepth_tpu.parallel.distributed wires the coordination-service heartbeat as
+(stepth.parallel.distributed wires the coordination-service heartbeat as
 the detector); this drill exercises the restart half with *real process
 boundaries*: phase A runs 5 LM iterations in its own Python process, saves a
 checkpoint (poses/points/lm_lambda), and exits — simulating a preemption right
@@ -27,8 +27,8 @@ import jax
 jax.config.update("jax_platforms", "cpu")
 import numpy as np
 import jax.numpy as jnp
-from stepth_tpu.fusion import ba
-from stepth_tpu.utils import checkpoint
+from stepth.fusion import ba
+from stepth.utils import checkpoint
 
 phase, ckpt, out, repo = sys.argv[1], sys.argv[2], sys.argv[3], sys.argv[4]
 prob_npz = np.load(os.path.join(os.path.dirname(ckpt), "problem.npz"))
@@ -55,7 +55,7 @@ else:
 
 def test_ba_checkpoint_kill_resume(tmp_path, rng):
     from tests.test_fusion_ba import make_problem
-    from stepth_tpu.fusion import ba
+    from stepth.fusion import ba
 
     problem, _, _ = make_problem(rng, n_cams=4, n_pts=40, perturb=0.05)
     np.savez(
@@ -90,7 +90,7 @@ def test_solve_resumable_interrupt_resume(tmp_path, rng):
     import jax.numpy as jnp
 
     from tests.test_fusion_ba import make_problem
-    from stepth_tpu.fusion import ba, resumable
+    from stepth.fusion import ba, resumable
 
     problem, _, _ = make_problem(rng, n_cams=4, n_pts=40, perturb=0.05)
     ckpt = str(tmp_path / "resumable.npz")
@@ -109,7 +109,7 @@ def test_solve_resumable_interrupt_resume(tmp_path, rng):
         raise AssertionError("killer hook never fired")
     except Die:
         pass
-    meta = __import__("stepth_tpu.utils.checkpoint", fromlist=["metadata"]).metadata(ckpt)
+    meta = __import__("stepth.utils.checkpoint", fromlist=["metadata"]).metadata(ckpt)
     assert meta["iter"] == 4 and meta["total_iters"] == 10
 
     # rerun THE SAME CALL — it must resume at iter 4, not restart
@@ -134,8 +134,8 @@ def test_checkpoint_save_is_atomic_and_tolerant(tmp_path, rng):
     import jax.numpy as jnp
 
     from tests.test_fusion_ba import make_problem
-    from stepth_tpu.fusion import ba, resumable
-    from stepth_tpu.utils import checkpoint
+    from stepth.fusion import ba, resumable
+    from stepth.utils import checkpoint
 
     ckpt = str(tmp_path / "atomic.npz")
     state = {"poses": jnp.ones((4, 6)), "lm": jnp.float32(2.0)}
@@ -164,7 +164,7 @@ def test_resumable_rejects_stale_checkpoint_from_other_problem(tmp_path, rng):
     """ADVICE r4: a checkpoint from a DIFFERENT problem at the same path (with
     a matching total_iters) must be ignored, not silently restored."""
     from tests.test_fusion_ba import make_problem
-    from stepth_tpu.fusion import ba, resumable
+    from stepth.fusion import ba, resumable
 
     prob_a, _, _ = make_problem(rng, n_cams=4, n_pts=40, perturb=0.05)
     prob_b, _, _ = make_problem(rng, n_cams=4, n_pts=40, perturb=0.05)
@@ -191,7 +191,7 @@ import jax
 jax.config.update("jax_platforms", "cpu")
 import numpy as np
 import jax.numpy as jnp
-from stepth_tpu.fusion import ba, resumable
+from stepth.fusion import ba, resumable
 
 ckpt, out, repo, die_at = sys.argv[1], sys.argv[2], sys.argv[3], int(sys.argv[4])
 prob_npz = np.load(os.path.join(os.path.dirname(ckpt), "problem.npz"))
@@ -212,8 +212,8 @@ def test_supervisor_relaunches_until_done(tmp_path, rng):
     killed mid-run (twice), the supervisor relaunches it, and the final
     result equals an uninterrupted solve bit-for-bit."""
     from tests.test_fusion_ba import make_problem
-    from stepth_tpu.fusion import ba
-    from stepth_tpu.utils import supervisor
+    from stepth.fusion import ba
+    from stepth.utils import supervisor
 
     problem, _, _ = make_problem(rng, n_cams=4, n_pts=40, perturb=0.05)
     np.savez(

@@ -4,7 +4,7 @@ images → pose integration with the epipolar module."""
 import numpy as np
 import jax.numpy as jnp
 
-from stepth_tpu.match import features
+from stepth.match import features
 
 
 def _checker_corners(rng, h=96, w=128, cell=16):
@@ -49,7 +49,7 @@ def test_images_to_pose_integration(rng):
     eight-point algorithm's degenerate configuration — E is not unique, so
     the first version of this test failed by design): render two views,
     detect + match features, recover the pose."""
-    from stepth_tpu.fusion import epipolar
+    from stepth.fusion import epipolar
     from tests.test_rectify import K, _rot
 
     h, w = 128, 192

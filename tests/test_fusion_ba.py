@@ -5,8 +5,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from stepth_tpu.fusion import ba, geometry as geo
-from stepth_tpu.parallel import mesh as mesh_mod
+from stepth.fusion import ba, geometry as geo
+from stepth.parallel import mesh as mesh_mod
 
 
 def make_problem(rng, n_cams=4, n_pts=60, noise=0.0, perturb=0.05):
@@ -111,7 +111,7 @@ def test_sharded_obs_count_validation(rng):
 def test_ba_checkpoint_resume(rng, tmp_path):
     """Failure-recovery contract: checkpoint mid-optimization, restore, and
     continue — final cost matches an uninterrupted run of the same length."""
-    from stepth_tpu.utils import checkpoint
+    from stepth.utils import checkpoint
 
     problem, _, _ = make_problem(rng, n_cams=3, n_pts=30, perturb=0.03)
     full = ba.solve(problem, iters=8, cg_iters=8)

@@ -3,7 +3,7 @@
 import numpy as np
 import jax.numpy as jnp
 
-from stepth_tpu.fusion import depthfusion, geometry as geo, posegraph
+from stepth.fusion import depthfusion, geometry as geo, posegraph
 
 
 def test_posegraph_recovers_chain(rng):

@@ -1,9 +1,9 @@
-"""SE(3)/projection geometry tests (stepth_tpu/fusion/geometry.py)."""
+"""SE(3)/projection geometry tests (stepth/fusion/geometry.py)."""
 
 import numpy as np
 import jax.numpy as jnp
 
-from stepth_tpu.fusion import geometry as geo
+from stepth.fusion import geometry as geo
 
 
 def rand_pose(rng, scale=0.5):

@@ -27,7 +27,7 @@ import os
 import numpy as np
 import pytest
 
-from tests.conftest import ASSETS
+from tests.conftest import ASSETS, require_assets
 
 GOLD_DEPTH = os.path.join(ASSETS, "depth.jpg")
 GOLD_FG = os.path.join(ASSETS, "foreground.jpg")
@@ -52,7 +52,7 @@ def _corr(a, b):
 
 @pytest.fixture(scope="module")
 def native_mod():
-    from stepth_tpu import native
+    from stepth import native
 
     if not native.available():
         pytest.skip(f"native engine unavailable: {native.build_error()}")
@@ -81,8 +81,9 @@ def test_depth_matches_published_golden(asset_pair, native_mod):
 def test_foreground_matches_published_golden():
     """README flow 2 (Readme.md:18-25): reload the *published* depth, invert,
     select foreground (2-zone k-means), apply mask — vs foreground.jpg."""
-    from stepth_tpu.core.frame import DepthFrame
+    from stepth.core.frame import DepthFrame
 
+    require_assets()
     img = DepthFrame.open(os.path.join(ASSETS, "main.jpg"))
     img = img.open_depth(GOLD_DEPTH)
     img = img.invert_depth()

@@ -1,7 +1,7 @@
-"""SGM-coarse hierarchical hybrid (interpret mode on CPU).
+"""SGM-coarse hierarchical hybrid.
 
-``match_hierarchical_pallas(coarse_backend="sgm")`` swaps the coarsest-level
-exhaustive WTA for the all-Pallas semi-global matcher. These tests pin the
+``match_hierarchical(coarse_backend="sgm")`` swaps the coarsest-level
+exhaustive WTA for the semi-global matcher. These tests pin the
 contract (same output surface as the WTA-coarse flagship), the composition
 (the hybrid is exactly SGM-at-coarsest + the same refine levels), and the
 reason the backend exists (repetitive texture that aliases under exhaustive
@@ -11,10 +11,10 @@ WTA resolves under SGM's scanline regularization).
 import numpy as np
 import jax.numpy as jnp
 
-from stepth_tpu.config import MatchConfig, PyramidConfig
-from stepth_tpu.match import dense, pallas_refine, pallas_sgm
-from stepth_tpu.match.sgm import SGMConfig
-from stepth_tpu.models.stereo import StereoModel
+from stepth.config import MatchConfig, PyramidConfig
+from stepth.match import dense, pyramid
+from stepth.match.sgm import SGMConfig
+from stepth.models.stereo import StereoModel
 
 from tests.test_match_dense import make_pair, interior
 
@@ -25,9 +25,7 @@ PYR = PyramidConfig(levels=3, refine_radius=4, coarsest_disparities=8)
 def test_hierarchical_sgm_recovers_shift(rng):
     shift = 10
     left, right = make_pair(rng, h=96, w=256, shift=shift)
-    res = pallas_refine.match_hierarchical_pallas(
-        left, right, CFG, PYR, interpret=True, coarse_backend="sgm"
-    )
+    res = pyramid.match_hierarchical(left, right, CFG, PYR, coarse_backend="sgm")
     assert res.disparity.shape == (96, 256)
     err = np.abs(np.asarray(interior(res.disparity, 16)) - shift)
     assert np.median(err) <= 1.0
@@ -35,15 +33,16 @@ def test_hierarchical_sgm_recovers_shift(rng):
 
 
 def test_hierarchical_sgm_is_sgm_plus_refine(rng):
-    """The hybrid == running the Pallas SGM matcher at the coarsest level and
+    """The hybrid == running the SGM matcher at the coarsest level and
     feeding its disparity through the identical refine-level loop, bit-for-bit."""
     left, right = make_pair(rng, h=64, w=256, shift=7)
     sgm = SGMConfig(directions=4)
-    res = pallas_refine.match_hierarchical_pallas(
-        left, right, CFG, PYR, interpret=True, coarse_backend="sgm", sgm=sgm
+    res = pyramid.match_hierarchical(
+        left, right, CFG, PYR, coarse_backend="sgm", sgm=sgm
     )
 
-    from stepth_tpu.match import pallas_post, pyramid as pyr_mod
+    from stepth.match import sgm as sgm_xla
+    pyr_mod = pyramid
 
     lg = dense.grayscale(jnp.asarray(left, jnp.float32))
     rg = dense.grayscale(jnp.asarray(right, jnp.float32))
@@ -51,27 +50,18 @@ def test_hierarchical_sgm_is_sgm_plus_refine(rng):
     for _ in range(PYR.levels - 1):
         lefts.append(pyr_mod.downsample2(lefts[-1]))
         rights.append(pyr_mod.downsample2(rights[-1]))
-    coarse_cfg = MatchConfig(
-        num_disparities=PYR.coarsest_disparities,
-        window=CFG.window,
-        cost=CFG.cost,
-        census_window=CFG.census_window,
-        subpixel=CFG.subpixel,
-        lr_threshold=None,
-    )
-    disp = pallas_sgm.match_pair_sgm_pallas(
-        lefts[-1], rights[-1], coarse_cfg, sgm, tile_rows=16, interpret=True
-    ).disparity
+    coarse_cfg = pyramid.coarse_config(CFG, PYR)
+    disp = sgm_xla.match_pair_sgm(lefts[-1], rights[-1], coarse_cfg, sgm).disparity
     max_base = PYR.coarsest_disparities
     for lvl in range(PYR.levels - 2, -1, -1):
         h, w = lefts[lvl].shape
         prior = pyr_mod.upsample2_disparity(disp, h, w)
         max_base *= 2
-        disp = pallas_refine.refine_level(
+        disp = pyramid.refine_level(
             lefts[lvl], rights[lvl], prior, CFG, PYR.refine_radius, max_base,
-            tile_rows=64, interpret=True,
+            tile_rows=64,
         )
-    disp = pallas_post.median3_pallas(disp, interpret=True)
+    disp = dense.median3(disp)
     np.testing.assert_array_equal(np.asarray(res.disparity), np.asarray(disp))
 
 
@@ -86,15 +76,11 @@ def test_hierarchical_sgm_resolves_repetitive_texture(rng):
     tex += rng.normal(0, 3.0, tex.shape).astype(np.float32)
     left, right = tex[:, :w], tex[:, shift:]
 
-    kw = dict(interpret=True)
     cfg = MatchConfig(num_disparities=32, window=9)
     pyr = PyramidConfig(levels=3, refine_radius=4, coarsest_disparities=16)
-    res_wta = pallas_refine.match_hierarchical_pallas(
-        left, right, cfg, pyr, coarse_backend="wta", **kw
-    )
-    res_sgm = pallas_refine.match_hierarchical_pallas(
-        left, right, cfg, pyr, coarse_backend="sgm",
-        sgm=SGMConfig(directions=4), **kw
+    res_wta = pyramid.match_hierarchical(left, right, cfg, pyr, coarse_backend="wta")
+    res_sgm = pyramid.match_hierarchical(
+        left, right, cfg, pyr, coarse_backend="sgm", sgm=SGMConfig(directions=4)
     )
     err_wta = np.abs(np.asarray(interior(res_wta.disparity, 16)) - shift)
     err_sgm = np.abs(np.asarray(interior(res_sgm.disparity, 16)) - shift)
@@ -117,9 +103,8 @@ def test_model_backend_hierarchical_sgm(rng):
 
 
 def test_xla_hierarchical_sgm_coarse(rng):
-    """XLA twin: pyramid.match_hierarchical(coarse_backend="sgm")."""
-    from stepth_tpu.match import pyramid
-
+    """pyramid.match_hierarchical(coarse_backend="sgm") with its default
+    refine tiles."""
     shift = 10
     left, right = make_pair(rng, h=96, w=256, shift=shift)
     res = pyramid.match_hierarchical(
@@ -132,9 +117,10 @@ def test_xla_hierarchical_sgm_coarse(rng):
 def test_sharded_hierarchical_sgm_matches_composition(rng):
     """Row-tile-sharded hybrid == (unsharded XLA SGM at the coarsest level +
     the identical refine levels + median), to the sharded-SGM ulp standard."""
-    from stepth_tpu.match import pallas_post, pyramid as pyr_mod
-    from stepth_tpu.match import sgm as sgm_xla
-    from stepth_tpu.parallel import mesh as mesh_mod, sharded
+    from stepth.match import sgm as sgm_xla
+    from stepth.parallel import mesh as mesh_mod, sharded
+
+    pyr_mod = pyramid
 
     shift = 9
     left, right = make_pair(rng, h=128, w=256, shift=shift)
@@ -152,25 +138,18 @@ def test_sharded_hierarchical_sgm_matches_composition(rng):
     for _ in range(pyr.levels - 1):
         lefts.append(pyr_mod.downsample2(lefts[-1]))
         rights.append(pyr_mod.downsample2(rights[-1]))
-    coarse_cfg = MatchConfig(
-        num_disparities=pyr.coarsest_disparities,
-        window=cfg.window,
-        cost=cfg.cost,
-        census_window=cfg.census_window,
-        subpixel=cfg.subpixel,
-        lr_threshold=None,
-    )
+    coarse_cfg = pyramid.coarse_config(cfg, pyr)
     disp = sgm_xla.match_pair_sgm(lefts[-1], rights[-1], coarse_cfg, sc).disparity
     max_base = pyr.coarsest_disparities
     for lvl in range(pyr.levels - 2, -1, -1):
         h, w = lefts[lvl].shape
         prior = pyr_mod.upsample2_disparity(disp, h, w)
         max_base *= 2
-        disp = pallas_refine.refine_level(
+        disp = pyramid.refine_level(
             lefts[lvl], rights[lvl], prior, cfg, pyr.refine_radius, max_base,
-            tile_rows=32, interpret=True,
+            tile_rows=32,
         )
-    ref = pallas_post.median3_pallas(disp, interpret=True)
+    ref = dense.median3(disp)
     np.testing.assert_allclose(
         np.asarray(got.disparity), np.asarray(ref), atol=1e-4
     )
@@ -179,7 +158,7 @@ def test_sharded_hierarchical_sgm_matches_composition(rng):
 
 
 def test_sharded_hierarchical_sgm_via_model(rng):
-    from stepth_tpu.parallel import mesh as mesh_mod
+    from stepth.parallel import mesh as mesh_mod
 
     shift = 6
     left, right = make_pair(rng, h=128, w=256, shift=shift)

@@ -5,7 +5,7 @@ import time
 import numpy as np
 import pytest
 
-from stepth_tpu.core.loader import PrefetchLoader, image_pair_loader
+from stepth.core.loader import PrefetchLoader, image_pair_loader
 
 
 def test_order_preserved():
@@ -41,7 +41,7 @@ def test_empty():
 
 
 def test_image_pair_loader(tmp_path):
-    from stepth_tpu.core import io
+    from stepth.core import io
 
     rng = np.random.default_rng(0)
     paths = []

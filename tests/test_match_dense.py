@@ -1,4 +1,4 @@
-"""Dense fast-path matcher tests (stepth_tpu/match/dense.py, pyramid.py).
+"""Dense fast-path matcher tests (stepth/match/dense.py, pyramid.py).
 
 Synthetic rectified pairs with known ground-truth shift; interior-region
 accuracy assertions (borders/occlusions excluded)."""
@@ -7,8 +7,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from stepth_tpu.config import MatchConfig, PyramidConfig
-from stepth_tpu.match import dense, pyramid
+from stepth.config import MatchConfig, PyramidConfig
+from stepth.match import dense, pyramid
 
 
 def make_pair(rng, h=64, w=96, shift=5):
@@ -146,7 +146,7 @@ def test_batched_model_equals_per_frame(rng):
     pairs equals the per-frame call bit-for-bit (lax.scan adds no math)."""
     import jax
 
-    from stepth_tpu.models import stereo
+    from stepth.models import stereo
 
     B, h, w, shift = 3, 48, 96, 4
     base = (np.cumsum(rng.uniform(0, 255, (B, h, w)), axis=2) % 255).astype(
@@ -170,11 +170,10 @@ def test_batched_model_equals_per_frame(rng):
 
 
 def test_batched_model_flagship_interpret(rng):
-    """The batched path also wraps the fused-kernel backend (interpret mode
-    on CPU, tiny shapes)."""
+    """The batched path also wraps the flagship (dense) configuration."""
     import jax
 
-    from stepth_tpu.models import stereo
+    from stepth.models import stereo
 
     B, h, w, shift = 2, 32, 160, 3
     base = (np.cumsum(rng.uniform(0, 255, (B, h, w)), axis=2) % 255).astype(

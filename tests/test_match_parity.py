@@ -4,10 +4,10 @@
 import numpy as np
 import pytest
 
-from stepth_tpu.match import parity
-from stepth_tpu.oracle import pipeline as oracle_pipe
-from stepth_tpu.oracle import ring as oracle_ring
-from stepth_tpu.oracle import subdivision as oracle_sub
+from stepth.match import parity
+from stepth.oracle import pipeline as oracle_pipe
+from stepth.oracle import ring as oracle_ring
+from stepth.oracle import subdivision as oracle_sub
 
 
 def _pair(rng, h=40, w=56, shift=3):

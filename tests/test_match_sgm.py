@@ -7,8 +7,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from stepth_tpu.config import MatchConfig
-from stepth_tpu.match import dense, sgm
+from stepth.config import MatchConfig
+from stepth.match import dense, sgm
 
 
 def sgm_oracle(vol: np.ndarray, directions: int, p1: float, p2: float) -> np.ndarray:
@@ -130,7 +130,7 @@ def test_sgm_zero_penalties_degenerate_to_wta():
 
 
 def test_model_backend_sgm():
-    from stepth_tpu.models.stereo import StereoModel
+    from stepth.models.stereo import StereoModel
 
     rng = np.random.default_rng(5)
     left, right = _noisy_pair(rng)
@@ -139,3 +139,28 @@ def test_model_backend_sgm():
     assert _epe(res.disparity, 6) < 0.75
     d8 = model.depth_u8(left, right)
     assert d8.dtype == jnp.uint8
+
+
+@pytest.mark.parametrize("directions", [2, 4, 8])
+@pytest.mark.parametrize("window", [3, 5])
+@pytest.mark.parametrize("lr_threshold", [1.0, None])
+def test_xla_sgm_equals_native(rng, directions, window, lr_threshold):
+    """The XLA SGM backend equals the native C++ SGM bit for bit on u8-valued
+    gray inputs (every intermediate is an exact small integer in f32). The
+    native engine implements the SAD cost, so that is the cost compared."""
+    from stepth import native
+
+    if not native.available():
+        pytest.skip("native engine needs a C++ toolchain")
+    h, w, shift = 40, 80, 4
+    left = rng.integers(0, 256, (h, w)).astype(np.float32)
+    right = np.roll(left, -shift, axis=1).astype(np.float32)
+    cfg = MatchConfig(num_disparities=12, window=window, lr_threshold=lr_threshold)
+    sc = sgm.SGMConfig(directions=directions)
+    ref = sgm.match_pair_sgm(left, right, cfg, sc)
+    disp, valid = native.sgm_disparity(
+        left, right, num_disparities=12, window=window, p1=sc.p1, p2=sc.p2,
+        directions=directions, lr_threshold=lr_threshold,
+    )
+    np.testing.assert_array_equal(disp, np.asarray(ref.disparity))
+    np.testing.assert_array_equal(valid, np.asarray(ref.valid))

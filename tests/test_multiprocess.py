@@ -108,7 +108,7 @@ def test_two_process_supervised_resume_shrunken_mesh(tmp_path):
     and resumes from the checkpoint to completion."""
     import numpy as np
 
-    from stepth_tpu.utils import supervisor
+    from stepth.utils import supervisor
 
     port = _free_port()
     env_common = {k: v for k, v in os.environ.items() if k != "JAX_PLATFORMS"}

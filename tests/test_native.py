@@ -4,8 +4,8 @@ pipeline on random images and a reference-asset crop."""
 import numpy as np
 import pytest
 
-from stepth_tpu import native
-from stepth_tpu.oracle import pipeline as oracle
+from stepth import native
+from stepth.oracle import pipeline as oracle
 
 pytestmark = pytest.mark.skipif(
     not native.available(), reason=f"native build failed: {native.build_error()}"
@@ -87,8 +87,8 @@ def test_sgm_disparity_bit_equal_to_xla(rng):
     integer penalties) is an exact small integer in f32, so the two
     implementations' floats are identical despite different summation
     machinery. Covers 2/4/8 directions, LR validity, subpixel, fill, median."""
-    from stepth_tpu.config import MatchConfig
-    from stepth_tpu.match import sgm
+    from stepth.config import MatchConfig
+    from stepth.match import sgm
 
     h, w, shift = 48, 96, 5
     left = rng.integers(0, 256, (h, w)).astype(np.float32)

@@ -3,7 +3,7 @@ call sites src/mask_image.rs:111-141)."""
 
 import numpy as np
 
-from stepth_tpu.ops import adjust
+from stepth.ops import adjust
 
 
 def test_brighten_saturating(rng):

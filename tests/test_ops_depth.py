@@ -2,7 +2,7 @@
 
 import numpy as np
 
-from stepth_tpu.ops import depth as d
+from stepth.ops import depth as d
 
 
 def test_invert(rng):
@@ -32,7 +32,7 @@ def test_slice_mask_bounds(rng):
 def test_frame_depth_method_backends(rng):
     """DepthFrame.load_depth_from_additional supports the production backends."""
     import jax.numpy as jnp
-    from stepth_tpu import DepthFrame
+    from stepth import DepthFrame
 
     tex = rng.uniform(0, 255, (48, 132, 3)).astype(np.uint8)
     main = tex[:, :128]
@@ -42,7 +42,7 @@ def test_frame_depth_method_backends(rng):
     assert d_dense.depth.shape == (48, 128)
     assert np.asarray(d_dense.depth).max() > 0
     if True:  # native path when toolchain present
-        from stepth_tpu import native
+        from stepth import native
 
         if native.available():
             d_nat = f.load_depth_from_additional(add, (36,) * 3, method="native")

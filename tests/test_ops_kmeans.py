@@ -4,8 +4,8 @@ src/depth_image.rs:162-218; docs/SEMANTICS.md §7)."""
 import numpy as np
 import pytest
 
-from stepth_tpu.oracle.kmeans import depth_split_oracle
-from stepth_tpu.ops import kmeans
+from stepth.oracle.kmeans import depth_split_oracle
+from stepth.ops import kmeans
 
 
 @pytest.mark.parametrize("zones", [2, 3, 4, 5])

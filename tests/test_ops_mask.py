@@ -3,7 +3,7 @@
 
 import numpy as np
 
-from stepth_tpu.ops import mask as m
+from stepth.ops import mask as m
 
 
 def _rand_mask(rng, h=16, w=24):

@@ -2,7 +2,7 @@
 
 import numpy as np
 
-from stepth_tpu.ops import photometric as p
+from stepth.ops import photometric as p
 
 
 def test_luma16_gain_and_noop(rng):

@@ -4,8 +4,8 @@ fixed-point semantics, docs/SEMANTICS.md §5) plus behavioral properties."""
 import numpy as np
 import pytest
 
-from stepth_tpu.ops import resize as r
-from stepth_tpu.oracle import resize as r_np
+from stepth.ops import resize as r
+from stepth.oracle import resize as r_np
 
 
 @pytest.mark.parametrize("shape,out", [((40, 60), (20, 30)), ((20, 30), (40, 60)),

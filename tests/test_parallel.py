@@ -7,10 +7,10 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from stepth_tpu.config import MatchConfig
-from stepth_tpu.match import dense
-from stepth_tpu.parallel import mesh as mesh_mod
-from stepth_tpu.parallel import sharded
+from stepth.config import MatchConfig
+from stepth.match import dense
+from stepth.parallel import mesh as mesh_mod
+from stepth.parallel import sharded
 
 from tests.test_match_dense import make_pair
 
@@ -80,24 +80,9 @@ def test_halo_validation_errors(rng):
         sharded.match_pair_sharded(left, right, cfg, m)
 
 
-def test_sharded_pallas_equals_single(rng):
-    from stepth_tpu.parallel.sharded import match_pair_sharded_pallas
-    from stepth_tpu.match import pallas_dense
-
-    left, right = make_pair(rng, h=64, w=128, shift=5)
-    cfg = MatchConfig(num_disparities=16, window=9, cost="sad", lr_threshold=1.0)
-    m = mesh_mod.make_mesh(data=1, tile=4)
-    ref = pallas_dense.match_pair_pallas(left, right, cfg, interpret=True)
-    got = match_pair_sharded_pallas(left, right, cfg, m, interpret=True)
-    np.testing.assert_array_equal(np.asarray(ref.valid), np.asarray(got.valid))
-    np.testing.assert_allclose(
-        np.asarray(ref.disparity), np.asarray(got.disparity), atol=1e-5
-    )
-
-
 def test_sharded_hierarchical_recovers_shift(rng):
-    from stepth_tpu.config import PyramidConfig
-    from stepth_tpu.parallel.sharded import match_hierarchical_sharded
+    from stepth.config import PyramidConfig
+    from stepth.parallel.sharded import match_hierarchical_sharded
 
     shift = 6
     left, right = make_pair(rng, h=128, w=256, shift=shift)
@@ -108,7 +93,6 @@ def test_sharded_hierarchical_recovers_shift(rng):
         MatchConfig(num_disparities=32, window=9),
         PyramidConfig(levels=3, refine_radius=4, coarsest_disparities=8),
         m,
-        interpret=True,
     )
     d = np.asarray(res.disparity)
     err = np.abs(d[16:-16, 24:-24] - shift)
@@ -117,23 +101,23 @@ def test_sharded_hierarchical_recovers_shift(rng):
 
 def test_sharded_hierarchical_equals_single(rng):
     """Seam-exact flagship (VERDICT round-1 item 6): the sharded hierarchical
-    matcher equals the single-device all-Pallas matcher BIT-FOR-BIT on the fake
+    matcher equals the single-device single-device matcher BIT-FOR-BIT on the fake
     mesh — the standard the dense sharded paths already meet. Requires matching
     tile_rows so refine tile-base quantization aligns globally."""
-    from stepth_tpu.config import PyramidConfig
-    from stepth_tpu.match import pallas_refine
-    from stepth_tpu.parallel.sharded import match_hierarchical_sharded
+    from stepth.config import PyramidConfig
+    from stepth.match import pyramid
+    from stepth.parallel.sharded import match_hierarchical_sharded
 
     left, right = make_pair(rng, h=128, w=256, shift=6)
     cfg = MatchConfig(num_disparities=32, window=9)
     pyr = PyramidConfig(levels=3, refine_radius=4, coarsest_disparities=8)
     for ntile in (2, 4):
         m = mesh_mod.make_mesh(data=1, tile=ntile)
-        ref = pallas_refine.match_hierarchical_pallas(
-            left, right, cfg, pyr, tile_rows=8, interpret=True
+        ref = pyramid.match_hierarchical(
+            left, right, cfg, pyr, tile_rows=8
         )
         got = match_hierarchical_sharded(
-            left, right, cfg, pyr, m, tile_rows=8, interpret=True
+            left, right, cfg, pyr, m, tile_rows=8
         )
         np.testing.assert_array_equal(
             np.asarray(ref.disparity), np.asarray(got.disparity)
@@ -144,21 +128,21 @@ def test_sharded_hierarchical_lr_valid_equals_single(rng):
     """Round-2 VERDICT weak #4: the sharded flagship must carry the same
     validity contract as the single-device path. With ``lr_check=True`` both
     disparity AND the LR/uniqueness valid mask are seam-exact."""
-    from stepth_tpu.config import PyramidConfig
-    from stepth_tpu.match import pallas_refine
-    from stepth_tpu.parallel.sharded import match_hierarchical_sharded
+    from stepth.config import PyramidConfig
+    from stepth.match import pyramid
+    from stepth.parallel.sharded import match_hierarchical_sharded
 
     left, right = make_pair(rng, h=128, w=256, shift=6)
     cfg = MatchConfig(num_disparities=32, window=9, lr_threshold=1.0)
     pyr = PyramidConfig(levels=3, refine_radius=4, coarsest_disparities=8)
-    ref = pallas_refine.match_hierarchical_pallas(
-        left, right, cfg, pyr, tile_rows=8, interpret=True, lr_check=True
+    ref = pyramid.match_hierarchical(
+        left, right, cfg, pyr, tile_rows=8, lr_check=True
     )
     assert not bool(np.asarray(ref.valid).all()), "LR must reject something"
     for ntile in (2, 4):
         m = mesh_mod.make_mesh(data=1, tile=ntile)
         got = match_hierarchical_sharded(
-            left, right, cfg, pyr, m, tile_rows=8, interpret=True,
+            left, right, cfg, pyr, m, tile_rows=8,
             lr_check=True,
         )
         np.testing.assert_array_equal(
@@ -172,8 +156,8 @@ def test_sharded_hierarchical_lr_valid_equals_single(rng):
 def test_sharded_lr_check_single_level_raises(rng):
     """ADVICE r3 (low): lr_check with levels=1 has no refine level to produce
     the right-view disparity — fail loudly like the single-device path."""
-    from stepth_tpu.config import PyramidConfig
-    from stepth_tpu.parallel.sharded import match_hierarchical_sharded
+    from stepth.config import PyramidConfig
+    from stepth.parallel.sharded import match_hierarchical_sharded
 
     left, right = make_pair(rng, h=64, w=128, shift=4)
     cfg = MatchConfig(num_disparities=16, window=9, lr_threshold=1.0)
@@ -181,18 +165,18 @@ def test_sharded_lr_check_single_level_raises(rng):
     m = mesh_mod.make_mesh(data=1, tile=2)
     with pytest.raises(ValueError, match="at least one refine level"):
         match_hierarchical_sharded(
-            left, right, cfg, pyr, m, tile_rows=8, interpret=True,
+            left, right, cfg, pyr, m, tile_rows=8,
             lr_check=True,
         )
 
 
 def test_batched_hierarchical_dp_equals_single(rng):
-    """Pure-DP batched flagship: each frame of the data-sharded batch equals
-    the single-device flagship bit-for-bit (zero collectives — the
+    """Pure-DP batched pyramid: each frame of the data-sharded batch equals
+    the single-device pyramid bit-for-bit (zero collectives — the
     throughput-scaling counterpart of the seam-exact tile axis)."""
-    from stepth_tpu.config import PyramidConfig
-    from stepth_tpu.match import pallas_refine
-    from stepth_tpu.parallel.sharded import match_batch_hierarchical_sharded
+    from stepth.config import PyramidConfig
+    from stepth.match import pyramid
+    from stepth.parallel.sharded import match_batch_hierarchical_sharded
 
     cfg = MatchConfig(num_disparities=32, window=9)
     pyr = PyramidConfig(levels=3, refine_radius=4, coarsest_disparities=8)
@@ -201,11 +185,11 @@ def test_batched_hierarchical_dp_equals_single(rng):
     rights = np.stack([p[1] for p in pairs])
     m = mesh_mod.make_mesh(data=4, tile=1)
     got = match_batch_hierarchical_sharded(
-        lefts, rights, cfg, pyr, m, tile_rows=8, interpret=True
+        lefts, rights, cfg, pyr, m, tile_rows=8
     )
     for i, (l, r) in enumerate(pairs):
-        ref = pallas_refine.match_hierarchical_pallas(
-            l, r, cfg, pyr, tile_rows=8, interpret=True
+        ref = pyramid.match_hierarchical(
+            l, r, cfg, pyr, tile_rows=8
         )
         np.testing.assert_array_equal(
             np.asarray(ref.disparity), np.asarray(got.disparity[i])

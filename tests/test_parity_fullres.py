@@ -13,7 +13,7 @@ import os
 import numpy as np
 import pytest
 
-from stepth_tpu import native
+from stepth import native
 
 pytestmark = [
     pytest.mark.skipif(
@@ -25,7 +25,7 @@ pytestmark = [
 
 
 def test_fullres_assets_parity(asset_pair):
-    from stepth_tpu.match import parity
+    from stepth.match import parity
 
     main, add = asset_pair
     prec = (36, 36, 36)

@@ -3,8 +3,8 @@
 import numpy as np
 import jax.numpy as jnp
 
-from stepth_tpu.core import io
-from stepth_tpu.fusion import geometry as geo
+from stepth.core import io
+from stepth.fusion import geometry as geo
 
 
 def test_depth_to_points_roundtrip():

@@ -12,12 +12,12 @@ import jax.numpy as jnp
 from hypothesis import given, settings, strategies as st
 from hypothesis.extra import numpy as hnp
 
-from stepth_tpu.ops import kmeans, mask as mask_ops
-from stepth_tpu.oracle import kmeans as oracle_kmeans
-from stepth_tpu.ops import resize as resize_ops
-from stepth_tpu.oracle import resize as oracle_resize
-from stepth_tpu.match import parity
-from stepth_tpu.oracle import subdivision as oracle_sub
+from stepth.ops import kmeans, mask as mask_ops
+from stepth.oracle import kmeans as oracle_kmeans
+from stepth.ops import resize as resize_ops
+from stepth.oracle import resize as oracle_resize
+from stepth.match import parity
+from stepth.oracle import subdivision as oracle_sub
 
 # STEPTH_HYP_EXAMPLES=300 (say) runs a deep fuzz; default stays CI-fast
 _N = int(os.environ.get("STEPTH_HYP_EXAMPLES", "15"))
@@ -176,7 +176,7 @@ def test_depth_split_merged_empty_cluster_regression():
 def test_luma16_normalization_matches_reference_twin(a, b, percent):
     """Independent recomputation of the reference's integer-floor means, f64
     gain, truncating u16 cast, and the no-op tolerance window."""
-    from stepth_tpu.ops import photometric
+    from stepth.ops import photometric
 
     got = photometric.normalize_brightness_luma16_exact(a, b, percent)
     fbr = np.float64(int(a.sum(dtype=np.uint64)) // a.size)
@@ -197,7 +197,7 @@ def test_luma16_normalization_matches_reference_twin(a, b, percent):
 @settings(**_SET)
 @given(img=u8_arr((7, 9, 4)), value=st.integers(-300, 300))
 def test_brighten_matches_numpy_twin(img, value):
-    from stepth_tpu.ops import adjust
+    from stepth.ops import adjust
 
     got = np.asarray(adjust.brighten(img, value))
     rgb = np.clip(img[..., :3].astype(np.int64) + value, 0, 255).astype(np.uint8)
@@ -208,7 +208,7 @@ def test_brighten_matches_numpy_twin(img, value):
 @settings(**_SET)
 @given(img=u8_arr((7, 9, 4)), c=st.floats(-99.0, 100.0))
 def test_contrast_matches_numpy_twin(img, c):
-    from stepth_tpu.ops import adjust
+    from stepth.ops import adjust
 
     got = np.asarray(adjust.contrast(img, np.float32(c)))
     percent = np.float32(((100.0 + np.float32(c)) / 100.0) ** 2)

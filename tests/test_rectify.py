@@ -2,9 +2,10 @@
 and the full rectify → match → depth flow on a synthetic rotated rig."""
 
 import numpy as np
+import pytest
 import jax.numpy as jnp
 
-from stepth_tpu.ops import rectify
+from stepth.ops import rectify
 
 
 def _rot(axis, deg):
@@ -79,8 +80,8 @@ def test_rectify_then_match_recovers_depth(rng):
     """End-to-end: synthesize two views of a fronto-parallel textured plane
     with a mildly rotated right camera, rectify, run the dense matcher, and
     recover the plane's depth from disparity."""
-    from stepth_tpu.config import MatchConfig
-    from stepth_tpu.match import dense
+    from stepth.config import MatchConfig
+    from stepth.match import dense
 
     h, w = 96, 160
     depth_z = 5.0
@@ -173,3 +174,34 @@ def test_distortion_folded_into_maps(rng):
         assert inb.sum() > 100
         np.testing.assert_allclose(got_x, exp[inb, 0], atol=0.05)
         np.testing.assert_allclose(got_y, exp[inb, 1], atol=0.05)
+
+
+@pytest.mark.parametrize("channels", [0, 3])
+@pytest.mark.parametrize("kind", ["affine", "random"])
+def test_remap_bilinear_matches_scipy(rng, channels, kind):
+    """``remap_bilinear`` is order-1 ``map_coordinates`` per plane, with the
+    fill value outside the source image."""
+    from scipy.ndimage import map_coordinates
+
+    h, w = 37, 53
+    shape = (h, w) if channels == 0 else (h, w, channels)
+    img = rng.uniform(0, 255, shape).astype(np.float32)
+    yy, xx = np.meshgrid(np.arange(h, dtype=np.float32),
+                         np.arange(w, dtype=np.float32), indexing="ij")
+    if kind == "affine":
+        mx, my = 0.97 * xx + 0.05 * yy + 1.3, -0.02 * xx + 1.01 * yy - 0.7
+    else:
+        mx = rng.uniform(-2, w + 1, (h, w)).astype(np.float32)
+        my = rng.uniform(-2, h + 1, (h, w)).astype(np.float32)
+    map_xy = np.stack([mx, my], -1).astype(np.float32)
+    got = np.asarray(rectify.remap_bilinear(jnp.asarray(img), jnp.asarray(map_xy),
+                                            fill=-7.0))
+    inb = (mx >= 0) & (mx <= w - 1) & (my >= 0) & (my <= h - 1)
+    planes = [img] if channels == 0 else [img[..., c] for c in range(channels)]
+    want = [
+        np.where(inb, map_coordinates(p.astype(np.float64), [my, mx], order=1,
+                                      mode="nearest"), -7.0)
+        for p in planes
+    ]
+    want = want[0] if channels == 0 else np.stack(want, -1)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-3)

@@ -7,10 +7,10 @@ agree except at a small interior-seam fraction."""
 import numpy as np
 import pytest
 
-from stepth_tpu.config import MatchConfig
-from stepth_tpu.match import sgm
-from stepth_tpu.parallel import mesh as mesh_mod
-from stepth_tpu.parallel import sgm_sharded
+from stepth.config import MatchConfig
+from stepth.match import sgm
+from stepth.parallel import mesh as mesh_mod
+from stepth.parallel import sgm_sharded
 
 from tests.test_match_dense import make_pair
 
@@ -80,7 +80,7 @@ def test_warmup_horizontal_only_is_exact(rng):
 
 def test_model_sharded_sgm_wiring(rng):
     # StereoModel(backend="sgm").sharded(mesh) routes to the exact sharded twin
-    from stepth_tpu.models.stereo import StereoModel
+    from stepth.models.stereo import StereoModel
 
     left, right = make_pair(rng, h=64, w=64, shift=4)
     cfg = MatchConfig(num_disparities=8, window=5)

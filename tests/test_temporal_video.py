@@ -1,5 +1,5 @@
 """Temporally-seeded video matching (`StereoModel.video` /
-`pallas_refine.match_temporal_pallas`): non-keyframe frames run only the
+`pyramid.match_temporal`): non-keyframe frames run only the
 full-resolution refine seeded by the previous frame's disparity.
 
 Reference: the reference library has no video path at all (single-pair,
@@ -9,8 +9,8 @@ layer (BASELINE.md config 4)."""
 import numpy as np
 import pytest
 
-from stepth_tpu.config import MatchConfig, PyramidConfig
-from stepth_tpu.models import StereoModel
+from stepth.config import MatchConfig, PyramidConfig
+from stepth.models import StereoModel
 
 H, W, T = 64, 160, 6
 MATCH = MatchConfig(num_disparities=16, window=9)
@@ -40,7 +40,7 @@ def test_seeded_frames_track_drifting_disparity():
     recovers the planted disparity without re-running the pyramid."""
     shifts = [5, 6, 7, 8, 9, 10]
     lefts, rights = _clip(shifts)
-    run = StereoModel(backend="hierarchical-pallas", match=MATCH,
+    run = StereoModel(backend="hierarchical", match=MATCH,
                       pyramid=PYR).video(keyframe_interval=4)
     meds = _medians(run(lefts, rights))
     for t, (m, s) in enumerate(zip(meds, shifts)):
@@ -52,7 +52,7 @@ def test_keyframe_recovers_beyond_radius_jump():
     contract) and the next keyframe self-corrects."""
     shifts = [4, 4, 12, 12, 12, 12]  # +8 px at t=2 >> radius 4
     lefts, rights = _clip(shifts)
-    run = StereoModel(backend="hierarchical-pallas", match=MATCH,
+    run = StereoModel(backend="hierarchical", match=MATCH,
                       pyramid=PYR).video(keyframe_interval=4)
     meds = _medians(run(lefts, rights))
     assert abs(meds[0] - 4) <= 0.75
@@ -63,7 +63,7 @@ def test_keyframe_recovers_beyond_radius_jump():
 def test_keyframe_interval_one_matches_per_frame_pyramid():
     shifts = [5, 7, 9]
     lefts, rights = _clip(shifts)
-    model = StereoModel(backend="hierarchical-pallas", match=MATCH, pyramid=PYR)
+    model = StereoModel(backend="hierarchical", match=MATCH, pyramid=PYR)
     per_frame = np.stack(
         [np.asarray(model(lefts[t], rights[t]).disparity) for t in range(3)]
     )
@@ -74,7 +74,7 @@ def test_keyframe_interval_one_matches_per_frame_pyramid():
 def test_video_lr_check_flags_and_rejects_unsupported_backend():
     shifts = [5, 6]
     lefts, rights = _clip(shifts)
-    model = StereoModel(backend="hierarchical-pallas", match=MATCH,
+    model = StereoModel(backend="hierarchical", match=MATCH,
                         pyramid=PYR, lr_check=True)
     res = model.video(keyframe_interval=2)(lefts, rights)
     v = np.asarray(res.valid)
@@ -85,13 +85,13 @@ def test_video_lr_check_flags_and_rejects_unsupported_backend():
 
 def test_sharded_temporal_equals_single():
     """Sharded temporal video == single-device temporal bit-for-bit on the
-    fake mesh (same effective tile_rows — the flagship seam-exactness
+    fake mesh (same effective tile_rows — the pyramid seam-exactness
     standard, applied to the seeded steps and the keyframe pyramid alike)."""
     import jax.numpy as jnp
 
-    from stepth_tpu.match import pallas_refine
-    from stepth_tpu.parallel import mesh as mesh_mod
-    from stepth_tpu.parallel.sharded import match_temporal_sharded
+    from stepth.match import pyramid
+    from stepth.parallel import mesh as mesh_mod
+    from stepth.parallel.sharded import match_temporal_sharded
 
     h, w = 128, 256
     shifts = [5, 6, 7, 8]
@@ -102,15 +102,13 @@ def test_sharded_temporal_equals_single():
     rights = jnp.asarray(np.stack([tex[:, s : s + w] for s in shifts]))
     cfg = MatchConfig(num_disparities=32, window=9)
     pyr = PyramidConfig(levels=3, refine_radius=4, coarsest_disparities=8)
-    ref = pallas_refine.match_temporal_pallas(
+    ref = pyramid.match_temporal(
         lefts, rights, cfg, pyr, keyframe_interval=2, tile_rows=8,
-        interpret=True,
     )
     for ntile in (2, 4):
         m = mesh_mod.make_mesh(data=1, tile=ntile)
         got = match_temporal_sharded(
             lefts, rights, cfg, pyr, m, keyframe_interval=2, tile_rows=8,
-            interpret=True,
         )
         np.testing.assert_array_equal(
             np.asarray(ref.disparity), np.asarray(got.disparity)
@@ -122,7 +120,7 @@ def test_sharded_temporal_equals_single():
 
 def test_video_sgm_coarse_backend():
     """`StereoModel.video` with the SGM-coarse hybrid: keyframes run the SGM
-    coarse stage, seeded frames the same refine as the flagship."""
+    coarse stage, seeded frames the same refine as the WTA-coarse pyramid."""
     shifts = [5, 6, 7]
     lefts, rights = _clip(shifts)
     run = StereoModel(backend="hierarchical-sgm", match=MATCH,

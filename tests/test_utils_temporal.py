@@ -6,8 +6,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from stepth_tpu.ops import temporal
-from stepth_tpu.utils import checkpoint, metrics, tracing
+from stepth.ops import temporal
+from stepth.utils import checkpoint, metrics, tracing
 
 
 # ---- temporal ops -----------------------------------------------------------
@@ -97,6 +97,16 @@ def test_annotate_decorator_passthrough():
         return v + 1
 
     assert f(1) == 2
+
+
+@pytest.mark.parametrize("intervals,busy,span", [
+    ([], 0, 0),
+    ([(10, 20)], 10, 10),
+    ([(30, 40), (10, 20)], 20, 30),  # a gap: idle share 1/3
+    ([(10, 25), (20, 30), (22, 24)], 20, 20),  # overlaps count once
+])
+def test_busy_and_span(intervals, busy, span):
+    assert tracing.busy_and_span_ns(intervals) == (busy, span)
 
 
 # ---- checkpoint -------------------------------------------------------------

@@ -1,16 +1,16 @@
 """Per-backend accuracy table on the procedural ground-truth scenes.
 
 The honest accuracy harness (round-3 mandate): every matcher backend on every
-scene family in stepth_tpu.utils.scenes, reporting EPE / bad1 / bad3 on
+scene family in stepth.utils.scenes, reporting EPE / bad1 / bad3 on
 non-occluded pixels, the same triple restricted to the disparity-edge band,
 the validity-mask density, and how well the matcher flags occlusions.
 
     JAX_PLATFORMS=cpu python tools/accuracy_eval.py --size small
-    python tools/accuracy_eval.py --size vga          # on the TPU
-    python tools/accuracy_eval.py --size 1080p --backends hierarchical-pallas,dense
+    python tools/accuracy_eval.py --size vga          # on the GPU
+    python tools/accuracy_eval.py --size 1080p --backends hierarchical,dense
 
-Prints a markdown table (the BASELINE.md accuracy section is generated from
-the vga/1080p runs) and exits non-zero if any backend crashes.
+Prints a markdown table (docs/ACCURACY_*.md are generated from such runs)
+and exits non-zero if any backend crashes.
 """
 
 from __future__ import annotations
@@ -33,9 +33,7 @@ SIZES = {
 
 DEFAULT_BACKENDS = (
     "dense",
-    "pallas",
     "hierarchical",
-    "hierarchical-pallas",
     "hierarchical-sgm",
     "sgm",
 )
@@ -61,24 +59,23 @@ def main() -> int:
     ap.add_argument("--lr", action=argparse.BooleanOptionalAction, default=True,
                     help="LR consistency: non-pyramid backends switch via "
                     "MatchConfig.lr_threshold (on by default); --lr also "
-                    "passes lr_check=True to the Pallas hierarchical "
-                    "backends (their in-kernel right-view WTA), which an "
-                    "earlier version of this harness failed to do — the "
-                    "round-4 BASELINE table's occ✓=0.000 flagship rows are "
-                    "that omission, not a backend limit")
+                    "passes lr_check=True to the pyramid backends (their "
+                    "full-resolution right view)")
     args = ap.parse_args()
 
     import jax  # noqa: E402 (after argparse so --help is fast)
 
-    from stepth_tpu.config import MatchConfig, PyramidConfig
-    from stepth_tpu.models import StereoModel
-    from stepth_tpu.utils import scenes
+    from stepth.config import MatchConfig, PyramidConfig
+    from stepth.utils.cache import enable_compile_cache
+    from stepth.models import StereoModel
+    from stepth.utils import scenes
 
+    enable_compile_cache()
     h, w, dmax, levels, coarsest = SIZES[args.size]
     match = MatchConfig(num_disparities=dmax, window=args.window,
                         cost=args.cost)
     # radius/windows left at the PyramidConfig defaults so the table always
-    # scores what the framework ships (round 5: R=2, nw=16)
+    # scores what the framework ships
     pyr = PyramidConfig(levels=levels, coarsest_disparities=coarsest)
     assert coarsest * 2 ** (levels - 1) >= dmax
 

@@ -3,8 +3,8 @@
 1. CG convergence on the implicit Schur system — relative residual per
    iteration with the block-Jacobi preconditioner vs plain CG, at bench
    scale and production scale → "iters to 1e-6".
-2. The obs-sharded solver (`solve_sharded`, 1-device mesh) timed on the real
-   chip at production scale (128 cams / 65 536 pts / 1 048 576 obs) next to
+2. The obs-sharded solver (`solve_sharded`, 1-device mesh) timed on the
+   device at production scale (128 cams / 65 536 pts / 1 048 576 obs) next to
    the single-device path.
 """
 
@@ -17,44 +17,16 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
-import jax.numpy as jnp
 import numpy as np
-
-jax.config.update("jax_compilation_cache_dir",
-                  os.path.join(os.path.dirname(os.path.dirname(
-                      os.path.abspath(__file__))), ".jax_cache"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 10)
 
 from jax.sharding import Mesh  # noqa: E402
 
-from stepth_tpu.fusion import ba, geometry as geo  # noqa: E402
+from stepth.fusion import ba  # noqa: E402
+from stepth.utils.cache import enable_compile_cache  # noqa: E402
 
 
 def make_problem(n_cams, n_pts, obs_per_cam, seed=0, perturb=0.01):
-    rng = np.random.default_rng(seed)
-    intr = jnp.asarray([500.0, 500.0, 640.0, 360.0])
-    pts = jnp.asarray(rng.uniform(-3, 3, (n_pts, 3)).astype(np.float32))
-    pts = pts.at[:, 2].add(10.0)
-    poses = jnp.asarray(
-        np.stack([
-            np.concatenate([rng.normal(0, 0.02, 3), [0.2 * c, 0.0, 0.0]]
-                           ).astype(np.float32)
-            for c in range(n_cams)
-        ])
-    )
-    ci = jnp.asarray(np.repeat(np.arange(n_cams), obs_per_cam), jnp.int32)
-    pi = jnp.asarray(rng.integers(0, n_pts, n_cams * obs_per_cam).astype(np.int32))
-    uv = geo.project(geo.transform(poses[ci], pts[pi]), intr)
-    return ba.BAProblem(
-        poses=poses + jnp.asarray(
-            rng.normal(0, perturb, poses.shape).astype(np.float32)),
-        points=pts,
-        intrinsics=intr,
-        cam_idx=ci,
-        pt_idx=pi,
-        uv=uv,
-        weight=jnp.ones(ci.shape[0], jnp.float32),
-    )
+    return ba.synthetic_problem(n_cams, n_pts, n_cams * obs_per_cam, seed, perturb)
 
 
 def report_convergence(name, prob, cg_iters=30):
@@ -85,6 +57,7 @@ def time_solver(name, fn, prob, n=6):
 
 
 def main():
+    enable_compile_cache()
     small = make_problem(32, 4096, 2048)
     report_convergence("bench-scale 32c/4096p/65k-obs", small)
 

@@ -55,23 +55,16 @@ def main() -> int:
     args = ap.parse_args()
 
     import jax
-
-    cache_dir = os.path.join(
-        os.path.dirname(os.path.dirname(os.path.abspath(__file__))), ".jax_cache"
-    )
-    try:
-        jax.config.update("jax_compilation_cache_dir", cache_dir)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 10)
-    except Exception:
-        pass
-
     import jax.numpy as jnp
 
-    from stepth_tpu.config import MatchConfig, PyramidConfig
-    from stepth_tpu.fusion import ba, depthfusion, geometry as geo, posegraph
-    from stepth_tpu.fusion import resumable
-    from stepth_tpu.models import StereoModel
-    from stepth_tpu.utils import scenes
+    from stepth.config import MatchConfig, PyramidConfig
+    from stepth.utils.cache import enable_compile_cache
+
+    enable_compile_cache()
+    from stepth.fusion import ba, depthfusion, geometry as geo, posegraph
+    from stepth.fusion import resumable
+    from stepth.models import StereoModel
+    from stepth.utils import scenes
 
     H, W, DMAX, LEVELS, COARSEST = SIZES[args.size]
     K = args.keyframes
@@ -136,7 +129,7 @@ def main() -> int:
 
     # ---- stage 1: temporal matcher (production configuration) -------------
     model = StereoModel(
-        backend="hierarchical-pallas",
+        backend="hierarchical",
         match=MatchConfig(num_disparities=DMAX, window=9, cost=args.cost),
         pyramid=PyramidConfig(levels=LEVELS, coarsest_disparities=COARSEST),
         lr_check=True,
